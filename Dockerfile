@@ -1,12 +1,11 @@
 # uvaia-tpu container (packaging parity with the reference's
 # Dockerfile, which builds the C toolchain in a Debian base).
 #
-# The compute path targets TPU via JAX; on a TPU VM swap the base
-# install for `pip install 'jax[tpu]' -f
-# https://storage.googleapis.com/jax-releases/libtpu_releases.html`.
-# CPU jax is installed here so the image also works (slowly) anywhere,
-# and so `uvaia -h` smoke-tests in plain docker build environments.
-FROM python:3.11-slim
+# The compute path runs on an NVIDIA GPU through the CUDA build of JAX
+# (its wheels bring the CUDA libraries); run the image with
+# `docker run --gpus all ...`.  Without a GPU, JAX falls back to the
+# CPU, so `uvaia -h` and the CPU tests still work anywhere.
+FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends \
         g++ \
@@ -16,10 +15,10 @@ RUN apt-get update && apt-get install -y --no-install-recommends \
     apt-get clean && rm -rf /var/lib/apt/lists/*
 
 WORKDIR /opt/uvaia-tpu
-COPY pyproject.toml README.md ./
+COPY pyproject.toml README.md chip_smoke.py ./
 COPY uvaia_tpu ./uvaia_tpu
 
-RUN pip install --no-cache-dir jax numpy && \
+RUN pip install --no-cache-dir 'jax[cuda12]' numpy && \
     pip install --no-cache-dir . && \
     # pre-build the native IO library (io/native.py builds lazily on
     # first use otherwise)

@@ -16,18 +16,16 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import gzip
 import os
 import sys
 import threading
 import time
 
-import numpy as np
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # genome length: SARS-CoV-2-scale by default; env-overridable so the
 # bench contract test can drive the full scale section cheaply on CPU
 L = int(os.environ.get("UVAIA_SCALE_L", 29903))
-ALPHA = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
 def rss_mb() -> int:
@@ -49,52 +47,10 @@ class PeakRss(threading.Thread):
             time.sleep(0.5)
 
 
-def gen(n: int, out: str, seed: int = 0, chunk: int = 512,
-        lineages: int = 0) -> None:
-    """Synthetic intra-species alignment.  Genomes are drawn around
-    `lineages` centres (default n//40): centre = backbone + ~8 SNPs;
-    member = centre + 0-3 private SNPs + an optional masked N run —
-    the redundancy profile clustering/dedup exists for (a purely
-    random per-genome mutation model makes every genome a singleton,
-    which no real surveillance dataset resembles)."""
-    rng = np.random.default_rng(seed)
-    backbone = ALPHA[rng.integers(0, 4, size=L)]
-    lineages = lineages or max(1, n // 40)
-    centre_pos = rng.integers(0, L, (lineages, 8))
-    centre_val = rng.integers(0, 4, (lineages, 8))
-    t0 = time.time()
-    with gzip.open(out, "wb", compresslevel=1) as f:
-        done = 0
-        while done < n:
-            m = min(chunk, n - done)
-            rows = np.tile(backbone, (m, 1))
-            lin = rng.integers(0, lineages, m)
-            # lineage-centre SNPs: one flat scatter for the whole chunk
-            rr = np.repeat(np.arange(m), 8)
-            rows[rr, centre_pos[lin].ravel()] = ALPHA[
-                centre_val[lin].ravel()]
-            # 0-3 private SNPs per row
-            k = rng.integers(0, 4, m)
-            rr = np.repeat(np.arange(m), k)
-            rows[rr, rng.integers(0, L, rr.size)] = ALPHA[
-                rng.integers(0, 4, rr.size)]
-            # one masked N run per row (length 0-599, clamped for
-            # short test genomes)
-            run = rng.integers(0, min(600, max(2, L // 5)), m)
-            start = rng.integers(0, L - run)
-            cols = np.arange(L)
-            nm = ((cols >= start[:, None])
-                  & (cols < (start + run)[:, None]))
-            rows[nm] = ord("N")
-            f.write(b"".join(
-                b">g%d\n%s\n" % (done + r, rows[r].tobytes())
-                for r in range(m)))
-            done += m
-            if done % 51200 == 0:
-                print(f"gen: {done}/{n} ({time.time()-t0:.0f}s)",
-                      file=sys.stderr)
-    print(f"gen: wrote {n} genomes ({lineages} lineages) to {out} "
-          f"in {time.time()-t0:.0f}s", file=sys.stderr)
+def gen(n: int, out: str, seed: int = 0, **kw) -> None:
+    """Synthetic lineage-structured alignment at length L (gzip)."""
+    from uvaia_tpu.utils.synth import gen as _gen
+    _gen(n, out, seed=seed, L=L, **kw)
 
 
 def _queries_from(db: str, n: int, path: str) -> None:

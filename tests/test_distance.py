@@ -137,3 +137,31 @@ def test_legacy_scores_partial_rule_variants(rule):
     with pytest.raises(ValueError):
         oracle.partial_weight(1, 8, rule="jacard")   # typo must not
         # silently fall through to the product rule (review r5)
+
+
+def test_legacy_weighted_partial_float64_pin():
+    """legacy_scores' weighted partial at the full genome width, against
+    a float64 NumPy sum of the same |a ∩ b| / (|a|·|b|) site weights.
+
+    rtol 2e-6 covers float32 accumulation of <= 29 903 terms at full
+    float32 precision (the dot_general asks for Precision.HIGHEST).  A
+    TF32 product (10-bit mantissa, the GPU's default for float32
+    matmuls) rounds every 1/3 weight and misses by ~1e-4 relative."""
+    import jax.numpy as jnp
+    from uvaia_tpu.core.encoding import POPCOUNT4
+    rng = np.random.default_rng(8)
+    L = 29903
+    alphabet = np.frombuffer(b"ACGTACGTACGTRYMKSWBDHVN-", np.uint8)
+    refs = np.stack([encode(alphabet[rng.integers(0, len(alphabet), L)])
+                     for _ in range(5)])
+    qs = np.stack([encode(alphabet[rng.integers(0, len(alphabet), L)])
+                   for _ in range(3)])
+    qdata = dist_ops.build_legacy_query_data(qs, trim=0)
+    got = np.asarray(dist_ops.legacy_scores(qdata, jnp.asarray(refs)))[..., 2]
+
+    def frac(c):
+        bits = ((c[..., None] >> np.arange(4)) & 1).astype(np.float64)
+        return bits / np.maximum(POPCOUNT4[c], 1)[..., None]
+    want = np.einsum("bls,qls->bq", frac(refs), frac(qs))
+    assert want.min() > 1000
+    np.testing.assert_allclose(got, want, rtol=2e-6)

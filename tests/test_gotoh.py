@@ -134,37 +134,55 @@ def test_certificate_edge_min():
     assert not ok[0]
 
 
-def test_pallas_score_matches_xla_forward():
-    """Pallas row-loop forward == lax.scan forward (interpret mode),
-    across band shapes, lengths, and masked rows."""
+def test_align_rows_events_equal_dense_walk():
+    """The events aligner (align_rows + host decode_events) and the
+    dense-walk fallback (align_rows_dense) give the same score, the
+    same certificate inputs and the same projected row, for SNPs,
+    indels and an N run."""
     import jax.numpy as jnp
-    from uvaia_tpu.ops import gotoh, pallas_gotoh
-
-    rng = np.random.default_rng(31)
-    n = 300
-    ACGT = np.frombuffer(b"ACGT", np.uint8)
-    ref = ACGT[rng.integers(0, 4, n)]
-    B, m_pad = 8, 512
-    arr = np.zeros((B, m_pad), np.uint8)
-    lens = np.zeros(B, np.int32)
-    for b in range(B):
+    rng = np.random.default_rng(17)
+    n = 400
+    ref = np.frombuffer(rand_dna(rng, n), np.uint8)
+    qs = []
+    for b in range(12):
         q = bytearray(ref.tobytes())
-        for _ in range(int(rng.integers(0, 12))):
-            q[int(rng.integers(0, len(q)))] = ACGT[rng.integers(0, 4)]
-        p = int(rng.integers(0, len(q) - 20))
-        ln = int(rng.integers(0, 10))
+        for _ in range(int(rng.integers(0, 8))):
+            q[int(rng.integers(0, len(q)))] = b"ACGT"[int(rng.integers(0, 4))]
+        if b % 3 == 0:
+            p = int(rng.integers(0, len(q) - 30))
+            q[p:p + 25] = b"N" * 25
+        p = int(rng.integers(0, len(q) - 12))
+        ln = int(rng.integers(1, 11))
         if b % 2:
             del q[p:p + ln]
         else:
-            q[p:p] = bytes(ACGT[rng.integers(0, 4, ln)])
-        arr[b, :len(q)] = np.frombuffer(bytes(q), np.uint8)
+            q[p:p] = rand_dna(rng, ln)
+        qs.append(bytes(q))
+    B = 16
+    arr = np.zeros((B, max(map(len, qs))), np.uint8)
+    lens = np.zeros(B, np.int32)
+    for b, q in enumerate(qs):
+        arr[b, :len(q)] = np.frombuffer(q, np.uint8)
         lens[b] = len(q)
+    idx = jnp.arange(B, dtype=jnp.int32)
+    lo, width, E = -32, 65, 64
+    args = (jnp.asarray(ref), jnp.asarray(arr), jnp.asarray(lens), idx)
 
-    for lo, width in [(-32, 65), (-16, 97)]:
-        s_x, e_x = gotoh.gotoh_score(jnp.asarray(ref), jnp.asarray(arr),
-                                     jnp.asarray(lens), lo, width)
-        s_p, e_p = pallas_gotoh.gotoh_score_pallas(
-            jnp.asarray(ref), jnp.asarray(arr), jnp.asarray(lens),
-            lo, width, interpret=True)
-        np.testing.assert_array_equal(np.asarray(s_x), np.asarray(s_p))
-        np.testing.assert_array_equal(np.asarray(e_x), np.asarray(e_p))
+    meta = np.asarray(gotoh.align_rows(*args, lo, width, gotoh.EV_CAP))
+    score, edge_min, done, cnt, ovf, t_end, ev_i, ev_t = \
+        gotoh.unpack_meta_events(meta, gotoh.EV_CAP)
+    meta_d, aligned_d = gotoh.align_rows_dense(*args, lo, width, E)
+    d_score, d_edge, d_done, d_cost = gotoh.unpack_meta(
+        np.asarray(meta_d), E)[:4]
+    aligned_d = np.asarray(aligned_d)
+
+    np.testing.assert_array_equal(score, d_score)
+    np.testing.assert_array_equal(edge_min, d_edge)
+    np.testing.assert_array_equal(done, d_done)
+    for b, q in enumerate(qs):
+        assert done[b] and not ovf[b]
+        row, cost = gotoh.decode_events(
+            np.frombuffer(q, np.uint8), ref, int(t_end[b]), lo,
+            ev_i[b], ev_t[b], int(cnt[b]))
+        assert cost == d_cost[b] == score[b] == oracle_score(ref.tobytes(), q)
+        assert row.tobytes() == aligned_d[b, :n].tobytes()

@@ -1,4 +1,4 @@
-"""Two local processes + DCN-style merge == single-process scan."""
+"""Two local processes + cross-host merge == single-process scan."""
 
 import lzma
 import socket
@@ -48,7 +48,7 @@ def test_two_process_merge_equals_single(tmp_path, monkeypatch):
                 NearestConfig(nbest=k, pool=16, output="single"))
     single = lzma.open("single.csv.xz", "rb").read()
 
-    # two coordinated processes, contiguous file ranges, DCN merge
+    # two coordinated processes, contiguous file ranges, merged top-k
     port = socket.socket().getsockname()[1] or 0
     s = socket.socket()
     s.bind(("localhost", 0))

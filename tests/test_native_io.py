@@ -160,3 +160,34 @@ def test_multistream_xz_parallel_decode(tmp_path, monkeypatch):
         got_1 = [(n, bytes(s)) for n, s in read_fasta_native(path)]
         assert got_mt == want, f"threaded decode mismatch for {path}"
         assert got_1 == want, f"serial decode mismatch for {path}"
+
+
+def test_native_build_without_codecs(tmp_path, monkeypatch, have_native):
+    """Where the liblzma/zlib headers are missing, the library is built
+    without xz/gzip decode: raw FASTA stays native, xz and gzip files go
+    to the Python reader, and every file reads the same."""
+    real_run = native.subprocess.run
+
+    def no_codec_headers(cmd, **kw):
+        if "-llzma" in cmd:
+            return native.subprocess.CompletedProcess(
+                cmd, 1, "", "fatal error: lzma.h: No such file or directory")
+        return real_run(cmd, **kw)
+
+    monkeypatch.setattr(native.subprocess, "run", no_codec_headers)
+    monkeypatch.setattr(native, "_SO", tmp_path / "libuvaia_io.so")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_failed", False)
+    lib = native.get_lib()
+    assert lib is not None and lib.ufa_has_codecs() == 0
+    for codec in ("raw", "gz", "xz"):
+        path = tmp_path / f"t.fa.{codec}"
+        opener = {"raw": open, "gz": gzip.open, "xz": lzma.open}[codec]
+        with opener(path, "wt") as f:
+            f.write(CONTENT)
+        assert native.reads_natively(path) == (codec == "raw")
+        if codec != "raw":
+            with pytest.raises(RuntimeError):
+                list(native.read_fasta_native(path))
+        got = [(r.name, r.seq) for r in read_fasta(path)]
+        assert got == [(r.name, r.seq) for r in _read_fasta_py(path)]

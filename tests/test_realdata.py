@@ -127,8 +127,8 @@ def test_gate_resumed(q1k, tmp_path, monkeypatch):
 
 
 # SHA256 of the decompressed --acgt gate CSV (8 001 lines), same run
-# configuration in acgt mode; generated on TPU, asserted on CPU — the
-# backends must agree bit-for-bit.  Protects the s4/s5 dist-column
+# configuration in acgt mode; every backend must reproduce it
+# bit-for-bit.  Protects the s4/s5 dist-column
 # split semantics (nearest.c:443-477 accumulation order).
 GOLDEN_ACGT_CSV_SHA256 = \
     "37389a680a2871036878cde85b88a9f97a1326e5f53dd9b8cd48fecbef4f72d6"
@@ -140,7 +140,7 @@ def test_gate_oracle_corroboration(q1k, tmp_path, monkeypatch):
     using ONLY core/oracle.py + numpy — no ops/, no engine scoring —
     and assert they match the engine CSV byte-for-byte.  This closes
     the self-reference loop of the SHA256 pins: two implementations
-    (MXU matmul kernels vs the per-pair spec functions) agree on real
+    (int8 matmul kernels vs the per-pair spec functions) agree on real
     data.  Semantics: data/README.md:1-20, README.md:254-330."""
     from uvaia_tpu.core import oracle
     from uvaia_tpu.core.encoding import ENCODE_LUT

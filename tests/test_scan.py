@@ -314,3 +314,117 @@ def test_merge_topk_plane_and_stacked_forms_agree(acgt):
                                       np.asarray(st_s[0]))
         np.testing.assert_array_equal(np.asarray(st_p[1]),
                                       np.asarray(st_s[1]))
+
+
+# ----------------------------------------------------------------------
+# the XLA scatter rebuild and packed scoring at the full genome width
+
+L_FULL = 29903
+
+
+@pytest.mark.parametrize("case", ["markers_padded_width", "masked_rows"])
+def test_reconstruct_delta_inverts_encode_full_width(case):
+    """reconstruct_delta (one XLA scatter + the run-marker pass) inverts
+    delta_encode at L=29 903: leading, trailing and interior N/'-' runs
+    (run markers), scattered SNPs, rows with ok=False, and a target
+    width padded to the scoring width.  The padding slots the scatter
+    relies on are unique and out of range (unique_indices=True)."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(41)
+    B = 48
+    base = ALPHABET[rng.integers(0, 4, L_FULL)]
+    base = np.asarray(encode(base.tobytes()))
+    codes = np.tile(base, (B, 1))
+    snp = rng.random((B, L_FULL)) < 0.002
+    codes[snp] = rng.integers(1, 16, snp.sum()).astype(np.uint8)
+    for r in range(0, B, 2):
+        codes[r, :int(rng.integers(1, 300))] = 0          # leading run
+        codes[r, L_FULL - int(rng.integers(1, 300)):] = 0  # trailing run
+        s = int(rng.integers(0, L_FULL - 600))
+        codes[r, s:s + int(rng.integers(4, 600))] = 0      # dropout
+    ok = np.ones(B, bool)
+    if case == "masked_rows":
+        ok[[3, 17, B - 1]] = False
+    width = 30720 if case == "markers_padded_width" else None
+
+    pos, val = scan.delta_encode(codes, ok, base)
+    assert (val >= 16).any()                      # run markers in use
+    for r in range(B):
+        real = pos[r] < L_FULL
+        n = int(real.sum())
+        assert real[:n].all()                     # entries first ...
+        assert (np.diff(pos[r].astype(np.int64)) > 0).all()  # ... unique
+        assert (pos[r, n:] >= L_FULL).all()       # pads out of range
+
+    got = np.asarray(scan.reconstruct_delta(
+        jnp.asarray(base), jnp.asarray(pos), jnp.asarray(val), width))
+    exp = np.where(ok[:, None], codes, base[None, :])
+    if width is not None:
+        assert got.shape == (B, width)
+        assert not got[:, L_FULL:].any()
+        got = got[:, :L_FULL]
+    np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.parametrize("acgt", [False, True])
+@pytest.mark.parametrize("n_query", [6, 100])
+def test_packed_scoring_equals_unpacked_and_oracle(acgt, n_query):
+    """score_batch_planes_packed (4-bit upload, unpacked on device) ==
+    score_batch_planes on the codes == the oracle, at an odd width."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(50 + n_query)
+    L = 601
+    pack = make_pack(rng, n_query=n_query, L=L, acgt=acgt)
+    refs = random_alignment(rng, 19, L, mut=0.05)
+    ref_codes = np.stack([encode(r) for r in refs])
+    qd = scan.build_device_data(pack, k=4)
+
+    planes_p, valid_p = scan.score_batch_planes_packed(
+        qd, jnp.asarray(scan.pack_codes(ref_codes)))
+    planes_u, valid_u = scan.score_batch_planes(qd, jnp.asarray(ref_codes))
+    for a, b in zip(planes_p, planes_u):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    np.testing.assert_array_equal(np.asarray(valid_p), np.asarray(valid_u))
+
+    ora, _ = oracle.nearest_oracle(
+        ref_codes, (ref_codes != 0).sum(axis=1), pack.codes,
+        pack.consensus, pack.idx_c, pack.idx_m, pack.idx, k=4, acgt=acgt)
+    np.testing.assert_array_equal(
+        np.stack([np.asarray(p) for p in planes_p], axis=-1), ora)
+
+
+def test_ambiguity_correction_equals_weight_tables():
+    """Full mode: the XLA one-hot correction adds, for each pair, the
+    sum over the query-ambiguous sites of w_text / w_part looked up at
+    the reference's code there — checked against a NumPy table lookup
+    by scoring once with and once without the correction."""
+    import dataclasses
+    import jax.numpy as jnp
+    rng = np.random.default_rng(61)
+    L = 500
+    pack = make_pack(rng, n_query=9, L=L)
+    refs = random_alignment(rng, 21, L, mut=0.1)
+    ref_codes = np.stack([encode(r) for r in refs])
+    qd = scan.build_device_data(pack, k=3)
+    assert qd.amb_sites is not None
+    bare = dataclasses.replace(qd, amb_sites=None, w_text=None, w_part=None)
+
+    with_c = scan.score_batch_planes(qd, jnp.asarray(ref_codes))[0]
+    without = scan.score_batch_planes(bare, jnp.asarray(ref_codes))[0]
+    sites = np.asarray(qd.amb_sites)
+    real = sites < L
+    ra = np.zeros((ref_codes.shape[0], len(sites)), np.int64)
+    ra[:, real] = ref_codes[:, sites[real]]
+    w_text = np.asarray(qd.w_text).astype(np.int64)     # (Q, A, 16)
+    w_part = np.asarray(qd.w_part).astype(np.int64)
+    a_idx = np.arange(len(sites))
+    exp_t = w_text[:, a_idx[None, :], ra].sum(-1).T      # (B, Q)
+    exp_p = w_part[:, a_idx[None, :], ra].sum(-1).T
+    assert exp_t.any() and exp_p.any()
+    np.testing.assert_array_equal(
+        np.asarray(with_c[1]) - np.asarray(without[1]), exp_t)
+    np.testing.assert_array_equal(
+        np.asarray(with_c[2]) - np.asarray(without[2]), exp_p)
+    for i in (0, 3, 4, 5):
+        np.testing.assert_array_equal(np.asarray(with_c[i]),
+                                      np.asarray(without[i]))

@@ -106,7 +106,7 @@ def _add_nearest(sub):
     p.add_argument("--num-hosts", type=int, default=1,
                    help="multi-host scan: total number of host processes "
                         "(each scans a contiguous file range; top-k merged "
-                        "over DCN at end of scan)")
+                        "across hosts at end of scan)")
     p.add_argument("--host-id", type=int, default=0,
                    help="this process's id in [0, num-hosts)")
     p.add_argument("--coordinator", default=None,
@@ -149,8 +149,7 @@ def _add_align(sub):
                    help="print alignment to stdout instead of xz file")
     p.add_argument("-a", "--ambiguity", type=float, default=0.5)
     p.add_argument("-p", "--pool", type=int, default=1024,
-                   help="query sequences aligned per device batch "
-                        "(1024 measured fastest on 30kb genomes)")
+                   help="query sequences aligned per device batch")
     p.add_argument("--band", type=int, default=1024,
                    help="DP band width (auto-widened on demand)")
     p.add_argument("-r", "--reference", required=True)
@@ -295,7 +294,8 @@ def _add_legacy(sub):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="uvaia-tpu",
-        description="TPU-native reference-based genome alignment & search")
+        description="Accelerator-native reference-based genome alignment & "
+                    "search")
     ap.add_argument("-v", "--version", action="version",
                     version=_version())
     sub = ap.add_subparsers(dest="cmd", required=True)

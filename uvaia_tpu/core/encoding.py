@@ -1,4 +1,4 @@
-"""Nucleotide encoding for TPU-native genome search.
+"""Nucleotide encoding for device-side genome search.
 
 Every sequence character is mapped to a 4-bit IUPAC *base-mask* over
 {A=1, C=2, G=4, T=8}; the mask value itself is the character's code

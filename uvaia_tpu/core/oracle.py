@@ -2,7 +2,7 @@
 
 This module is the *specification*: a slow, obviously-correct
 implementation of the pairwise counters and of the six-score ranking
-used by ``uvaia`` nearest-neighbour search.  The TPU kernels in
+used by ``uvaia`` nearest-neighbour search.  The device kernels in
 ``uvaia_tpu.ops`` are tested against it.
 
 Reference semantics recovered from:

@@ -6,13 +6,13 @@ text-mismatch distance is <= `distance`, keep one medoid per cluster
 (the most resolved member, add_seq_to_cluster fastaseq.c:182), record
 every member name, and write the medoid alignment + membership table.
 
-TPU-first reformulation (documented deviations from the C design,
+Accelerator-first reformulation (documented deviations from the C design,
 which is itself order-dependent and approximate):
 
 * the C pool of per-thread queues + log2 merge reduction
   (cluster.c:219-230) becomes ONE global cluster set scanned densely:
   each batch computes exact mismatch distances to ALL current medoids
-  on the MXU (15 int8 features/site: valid + pure-base one-hot +
+  as int8 matmuls (15 int8 features/site: valid + pure-base one-hot +
   ambiguity-code one-hot close the text-match count exactly), then a
   final all-pairs medoid merge pass replaces the queue merges;
 * the C distance-to-reference "ring" prefilter (fastaseq.c:154) is an
@@ -118,7 +118,7 @@ class MedoidIndex:
     """Device-resident medoid code matrix + exact mismatch distances."""
 
     STORE_TILE = 4096       # medoid rows per distance tile (bounds the
-                            # (tile, L, 10) int8 feature planes in HBM)
+                            # (tile, L, 10) int8 feature planes in device memory)
 
     def __init__(self, L: int, capacity: int, trim: int,
                  initial_tier: int = 1024,
@@ -138,15 +138,13 @@ class MedoidIndex:
         # first-n_snps SNP positions): when given, assign() folds the
         # stats into the fused device step — the batch codes are
         # already rebuilt on device there, while the host numpy pass
-        # (_seq_stats) costs ~0.54 ms/genome on this one-core VM
-        # (~135 s at the 250k scale rung)
+        # (_seq_stats) is a full extra pass over every row
         self._stats_ref_d = (None if stats_ref is None
                              else jnp.asarray(stats_ref))
         self._n_snps = max(0, int(n_snps))
         # store sized in x4 tiers: distance kernels only ever see the
-        # current tier, and each grow step costs one recompile (remote
-        # compiles are ~20-40s, so fewer/larger tiers win over tighter
-        # memory)
+        # current tier, and each grow step costs one recompile (so
+        # fewer/larger tiers win over tighter memory)
         self.tier = initial_tier
         self._codes = jnp.zeros((self.tier, L), dtype=jnp.uint8)
 
@@ -192,7 +190,7 @@ class MedoidIndex:
         # codes_d[b] / codes_d[rows] at the python level recompiled a
         # fresh gather for every distinct row set, which is what made
         # the first store-input cluster run on the real 9185-genome DB
-        # take 580 s on the remote TPU (a compile per batch)
+        # compile once per batch
         self._update = _jax.jit(
             lambda store, codes_d, src, dst, k: store.at[
                 jnp.where(jnp.arange(src.shape[0]) < k,
@@ -272,7 +270,8 @@ class MedoidIndex:
                     codes_d = scan_ops.unpack_codes(packed, self.L)
                 # scan the store in tiles: the one-hot feature planes
                 # are (tile, L, 10) int8 — materialising them for the
-                # whole store OOMs HBM past ~32k medoids
+                # whole store runs out of device memory past ~32k
+                # medoids
                 tile = min(store.shape[0], self.STORE_TILE)
                 n_tiles = store.shape[0] // tile
                 store_t = store.reshape(n_tiles, tile, self.L)
@@ -410,8 +409,7 @@ def _seq_stats(codes: np.ndarray, ref_codes: np.ndarray, window: np.ndarray,
 
     Host numpy SPEC of the stats MedoidIndex.assign computes on device
     (kept as the oracle the equivalence test pins against; the engine
-    itself uses the device fold — this pass cost ~0.54 ms/genome on
-    the one-core bench VM)."""
+    itself uses the device fold)."""
     valid = codes != 0
     non_n = valid.sum(axis=1).astype(np.int64)
     vpair = valid & (ref_codes != 0)[None, :] & window[None, :]

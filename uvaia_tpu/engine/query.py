@@ -11,7 +11,7 @@ pipeline (all citations into /root/reference/src):
 The three site classes partition the informative columns:
 ``idx_c`` constant & gap-free in every query (compare ref↔consensus once),
 ``idx_m`` constant but gapped in some query, ``idx`` polymorphic.  For
-dense TPU scoring only the split (idx_c | idx_mq=idx_m∪idx) matters; the
+dense device scoring only the split (idx_c | idx_mq=idx_m∪idx) matters; the
 finer split is kept for ball's staged semantics and for parity checks.
 """
 

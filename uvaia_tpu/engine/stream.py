@@ -3,7 +3,7 @@
 Replaces the reference's single-threaded read/compute/write phase
 alternation (nearest.c:249-330) with a background reader thread feeding
 fixed-shape encoded batches through a bounded queue, so xz decompression
-overlaps device compute (the TPU analogue of its OpenMP pipeline).
+overlaps device compute (the device analogue of its OpenMP pipeline).
 
 Fast path: the native C++ reader's batched API (native/fasta_io.cpp)
 fills a (chunk, L) char matrix directly — encoding and the valid-site
@@ -20,7 +20,6 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..core.encoding import ENCODE_LUT
-from ..io.compress import sniff_codec
 from ..io.fasta import read_fasta
 from ..utils.prefetch import Prefetcher
 
@@ -115,7 +114,7 @@ class RefStreamer:
         lib = native.get_lib()
         for path in self.paths:
             self.stats.files.append(path)
-            if lib is not None and sniff_codec(path) != "bz2":
+            if native.reads_natively(path):
                 yield from self._native_chunks(lib, path)
             else:
                 yield from self._python_chunks(path)
@@ -285,12 +284,12 @@ class EncodedStream:
     outputs are fresh arrays, so concurrent workers are race-free by
     construction.
 
-    ``workers`` (UVAIA_TPU_ENCODE_THREADS) sizes the pool: on this
-    one-core dev VM >1 worker only adds oversubscription, so the
-    default scales with the host — min(2, cpu_count-1), floor 1 —
-    while a multicore production host can raise it until the encode
-    stage matches its transport (the encode is the streamed path's
-    host bound: ~120MB of XOR scan per 4096x30k batch).
+    ``workers`` (UVAIA_TPU_ENCODE_THREADS) sizes the pool: on a
+    one-core host >1 worker only adds oversubscription, so the default
+    scales with the host — min(2, cpu_count-1), floor 1 — and a
+    multicore host can raise it until the encode stage keeps up with
+    the device (the encode is the streamed path's host bound: ~120MB
+    of XOR scan per 4096x30k batch).
     """
 
     def __init__(self, streamer: RefStreamer, delta_base: np.ndarray,

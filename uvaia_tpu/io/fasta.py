@@ -30,11 +30,11 @@ class FastaRecord:
 def read_fasta(path: str | Path) -> Iterator[FastaRecord]:
     """Yield (name, uppercased sequence bytes) records.
 
-    Uses the native C++ reader (io/native.py) for xz/gz/raw files,
-    falling back to the Python implementation (bz2, or when the native
-    library is unavailable)."""
-    from .compress import sniff_codec
-    if sniff_codec(path) != "bz2":
+    Uses the native C++ reader (io/native.py) for the files it takes
+    (native.reads_natively), falling back to the Python implementation
+    otherwise."""
+    from .native import reads_natively
+    if reads_natively(path):
         yielded = False
         try:
             from .native import read_fasta_native

@@ -2,7 +2,9 @@
 
 Compiled on first use with g++ (cached next to the source); callers
 fall back to the pure-Python reader when compilation or the codec is
-unavailable (bz2 is Python-only).  Disable with UVAIA_TPU_NO_NATIVE=1.
+unavailable (bz2 is Python-only; xz and gzip too when the library was
+built without the liblzma/zlib headers).  Disable with
+UVAIA_TPU_NO_NATIVE=1.
 """
 
 from __future__ import annotations
@@ -24,17 +26,26 @@ _failed = False
 
 
 def _build() -> bool:
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-pthread", str(_SRC),
-           "-o", str(_SO), "-llzma", "-lz"]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-    except (OSError, subprocess.TimeoutExpired):
-        return False
-    if r.returncode != 0:
-        print(f"uvaia-tpu: native IO build failed, using Python reader:\n"
-              f"{r.stderr[-500:]}", file=sys.stderr)
-        return False
-    return True
+    """g++ the library; where the liblzma/zlib headers are missing,
+    build it without xz/gzip decode (UVAIA_NO_CODECS) so raw FASTA and
+    the delta/store kernels stay native."""
+    base = ["g++", "-O3", "-shared", "-fPIC", "-pthread", str(_SRC),
+            "-o", str(_SO)]
+    for extra in (["-llzma", "-lz"], ["-DUVAIA_NO_CODECS"]):
+        try:
+            r = subprocess.run(base + extra, capture_output=True, text=True,
+                               timeout=120)
+        except (OSError, subprocess.TimeoutExpired):
+            return False
+        if r.returncode == 0:
+            if "-DUVAIA_NO_CODECS" in extra:
+                print("uvaia-tpu: native IO built without xz/gzip decode "
+                      "(liblzma/zlib headers missing); compressed inputs "
+                      "use the Python reader", file=sys.stderr)
+            return True
+    print(f"uvaia-tpu: native IO build failed, using Python reader:\n"
+          f"{r.stderr[-500:]}", file=sys.stderr)
+    return False
 
 
 def get_lib():
@@ -69,8 +80,21 @@ def get_lib():
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t)]
         lib.ufa_close.restype = None
         lib.ufa_close.argtypes = [ctypes.c_void_p]
+        lib.ufa_has_codecs.restype = ctypes.c_int
+        lib.ufa_has_codecs.argtypes = []
         _lib = lib
     return _lib
+
+
+def reads_natively(path) -> bool:
+    """Whether the native reader takes this file: raw FASTA always, xz
+    and gzip when the library was built with its codecs, bz2 never."""
+    from .compress import sniff_codec
+    lib = get_lib()
+    if lib is None:
+        return False
+    codec = sniff_codec(path)
+    return codec == "raw" or (codec != "bz2" and lib.ufa_has_codecs() == 1)
 
 
 def read_fasta_native(path):

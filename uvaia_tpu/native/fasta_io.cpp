@@ -8,9 +8,13 @@
 // reader.
 //
 // Build: g++ -O3 -shared -fPIC fasta_io.cpp -o libuvaia_io.so -llzma -lz
+// Where the liblzma/zlib headers are missing, -DUVAIA_NO_CODECS builds
+// without them: raw FASTA and the delta/store kernels stay native, and
+// ufa_open refuses xz and gzip files (the Python reader takes them).
 //
 // API contract:
 //   handle = ufa_open(path)          NULL on failure
+//   ufa_has_codecs()                 1 if xz/gzip decode is built in
 //   r = ufa_next(handle, &name, &name_len, &seq, &seq_len)
 //       1 = record produced, 0 = EOF, -1 = read/decode error
 //       buffers owned by the handle, valid until the next call
@@ -31,8 +35,10 @@
 
 #include <unistd.h>
 
+#ifndef UVAIA_NO_CODECS
 #include <lzma.h>
 #include <zlib.h>
+#endif
 
 namespace {
 
@@ -53,6 +59,18 @@ struct Source {
   virtual long read(uint8_t* buf, size_t n) = 0;
 };
 
+struct RawSource : Source {
+  FILE* f;
+  explicit RawSource(FILE* f) : f(f) {}
+  ~RawSource() override { fclose(f); }
+  long read(uint8_t* buf, size_t n) override {
+    size_t got = fread(buf, 1, n, f);
+    if (got == 0 && ferror(f)) return -1;
+    return static_cast<long>(got);
+  }
+};
+
+#ifndef UVAIA_NO_CODECS
 struct GzSource : Source {
   gzFile f;
   explicit GzSource(gzFile f) : f(f) {}
@@ -310,6 +328,7 @@ static unsigned xz_threads_config() {
   unsigned t = hw > 1 ? hw - 1 : 1;
   return t > 8 ? 8 : t;
 }
+#endif  // UVAIA_NO_CODECS
 
 struct Reader {
   Source* src = nullptr;
@@ -426,15 +445,35 @@ struct Reader {
 
 extern "C" {
 
+int ufa_has_codecs() {
+#ifdef UVAIA_NO_CODECS
+  return 0;
+#else
+  return 1;
+#endif
+}
+
 void* ufa_open(const char* path) {
   FILE* probe = fopen(path, "rb");
   if (!probe) return nullptr;
   uint8_t magic[6] = {0};
   size_t got = fread(magic, 1, 6, probe);
-
+  bool xz = got >= 6 && memcmp(magic, "\xfd""7zXZ\x00", 6) == 0;
+  bool gz = got >= 2 && magic[0] == 0x1f && magic[1] == 0x8b;
+  if (!xz && !gz) {
+    rewind(probe);
+    Reader* r = new Reader();
+    r->buf.resize(kChunk);
+    r->src = new RawSource(probe);
+    return r;
+  }
+#ifdef UVAIA_NO_CODECS
+  fclose(probe);
+  return nullptr;
+#else
   Reader* r = new Reader();
   r->buf.resize(kChunk);
-  if (got >= 6 && memcmp(magic, "\xfd""7zXZ\x00", 6) == 0) {
+  if (xz) {
     unsigned threads = xz_threads_config();
     std::vector<std::pair<long, long>> spans;
     bool mt = false;
@@ -456,7 +495,7 @@ void* ufa_open(const char* path) {
     }
   } else {
     fclose(probe);
-    gzFile gf = gzopen(path, "rb");  // transparently handles gz and raw
+    gzFile gf = gzopen(path, "rb");
     if (!gf) {
       delete r;
       return nullptr;
@@ -465,6 +504,7 @@ void* ufa_open(const char* path) {
     r->src = new GzSource(gf);
   }
   return r;
+#endif
 }
 
 int ufa_next(void* handle, const char** name, size_t* name_len,
@@ -549,7 +589,7 @@ long ufa_next_batch(void* handle, uint8_t* seqbuf, uint8_t* codebuf,
   return k;
 }
 
-// Sparse-delta encoder for the TPU upload path (ops/scan.delta_encode).
+// Sparse-delta encoder for the device upload path (ops/scan.delta_encode).
 // Extraction: ONE scan of the batch; diffs land in a stride-`ecap`
 // scratch (no sentinel fill here — that happens in the repack once the
 // per-batch bucket width is known).  The ctz walk over the XOR word
@@ -690,8 +730,7 @@ void ufa_delta_repack(const uint16_t* pos_in, const uint8_t* val_in,
 // ingest): packs codes two-per-byte, counts valid sites, extracts '-'
 // runs and residual decode exceptions — all in a single scan of the
 // (n, stride) block.  The equivalent numpy pipeline needs ~8 full
-// passes over the 122MB block and measured 30s of a 38.5s real-DB
-// ingest on the 1-core/0.26GB-s bench host; this loop is one pass.
+// passes over the 122MB block; this loop is one pass.
 //   packed    — n * ((stride+1)/2) bytes out
 //   valid     — n counts out
 //   runs      — (start, len) uint32 pairs, runs_cap PAIRS capacity

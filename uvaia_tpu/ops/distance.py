@@ -121,10 +121,15 @@ def legacy_scores(qdata: dict, ref_codes: jnp.ndarray):
 
     s_aa = _imm(a_r, qdata["a_q"])
     s_vv = _imm(v_r, qdata["v_q"])
+    # HIGHEST precision: the operands are 1/2, 1/3 and 1/4 weights, and
+    # a GPU's default float32 matmul runs in TF32, whose 10-bit mantissa
+    # rounds 1/3 and drifts the weighted partial sums far enough to move
+    # stage-3 ranks away from the exact (CPU) result
     mw = jax.lax.dot_general(
         mn_r.reshape(r.shape[0], -1), qdata["mn_q"].reshape(
             qdata["mn_q"].shape[0], -1),
-        (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32)
+        (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST)
     corr_t = 0
     if qdata["amb_cols"].shape[0]:
         ra = jnp.take(r, qdata["amb_cols"], axis=1)
@@ -138,7 +143,8 @@ def legacy_scores(qdata: dict, ref_codes: jnp.ndarray):
             wp = qdata["w_part"].reshape(qdata["w_part"].shape[0], -1)
             mw = mw + jax.lax.dot_general(
                 ohf, wp, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32)
+                preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST)
     text = s_aa + corr_t
     return jnp.stack([s_aa.astype(jnp.float32),
                       text.astype(jnp.float32), mw,

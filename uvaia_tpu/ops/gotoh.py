@@ -1,17 +1,17 @@
 """Batched banded global alignment with affine gaps, on device.
 
-TPU-native replacement for the reference's WFA gap-affine wavefront
+Device replacement for the reference's WFA gap-affine wavefront
 aligner (align.c:306-309 uses penalties {match=0, mismatch=4,
 gap_open=6, gap_extend=2}, "bwa-mem values", with adaptive wavefront
 reduction).  Instead of translating the wavefront algorithm's
 data-dependent loops, this computes the *optimal* banded Gotoh DP —
 a fixed-shape anti-diagonal-free formulation that vectorises over
-(batch x band) on the VPU:
+(batch x band):
 
 * rows i = 1..n scanned with `lax.scan`; the in-row horizontal
   dependency (query-gap runs) is closed in O(log W) with a prefix
   cummin instead of a sequential loop;
-* a packed traceback byte per cell is emitted to HBM;
+* a packed traceback byte per cell is emitted to device memory;
 * the traceback walk runs on device as a second scan, emitting the
   reference-projected alignment directly (M/X -> query char, D -> '-',
   I dropped), matching update_query_aligned (align.c:366-390);
@@ -40,16 +40,14 @@ MISMATCH = 4
 GAP_OPEN = 6
 GAP_EXT = 2
 OE = GAP_OPEN + GAP_EXT
-UNROLL = 8       # DP rows / traceback steps per lax.scan iteration; at
-                 # L=30k the per-iteration dispatch overhead dominates a
-                 # (B, W) row's VPU work, so amortise it 8x
+UNROLL = 8       # DP rows per lax.scan iteration; at L=30k the
+                 # per-iteration loop overhead dominates a (B, W) row's
+                 # work, so amortise it 8x
 
 
-def _row_kernel(ref, qp, qlen, lo, W, n, h_prev, x_prev, edge_min, i,
-                emit_tb: bool):
-    """One banded Gotoh row (shared by the tb-emitting and score-only
-    forwards).  Rows with i > n are masked to a no-op so the scan can
-    run over UNROLL-padded row counts."""
+def _row_kernel(ref, qp, qlen, lo, W, n, h_prev, x_prev, edge_min, i):
+    """One banded Gotoh row of the forward.  Rows with i > n are masked
+    to a no-op so the scan can run over UNROLL-padded row counts."""
     B = qp.shape[0]
     e = jnp.int32(GAP_EXT)
     oe = jnp.int32(OE)
@@ -90,17 +88,15 @@ def _row_kernel(ref, qp, qlen, lo, W, n, h_prev, x_prev, edge_min, i,
     x_row = jnp.where(jv, x_row, INF)
     x_row = jnp.minimum(x_row, INF)
 
-    tb_row = None
-    if emit_tb:
-        y_open_direct = jnp.concatenate(
-            [jnp.full((B, 1), INF), g_row[:, :-1] + oe], axis=1)
-        y_from_ext = y_row < y_open_direct   # prefer open on ties
-        g_from_x = x_row < m_row             # argmin within G (M vs X)
-        src = jnp.where(y_row < g_row, 2,
-                        g_from_x.astype(jnp.int32)).astype(jnp.uint8)
-        tb_row = (src | (x_from_ext.astype(jnp.uint8) << 2)
-                  | (y_from_ext.astype(jnp.uint8) << 3)
-                  | (g_from_x.astype(jnp.uint8) << 4))
+    y_open_direct = jnp.concatenate(
+        [jnp.full((B, 1), INF), g_row[:, :-1] + oe], axis=1)
+    y_from_ext = y_row < y_open_direct       # prefer open on ties
+    g_from_x = x_row < m_row                 # argmin within G (M vs X)
+    src = jnp.where(y_row < g_row, 2,
+                    g_from_x.astype(jnp.int32)).astype(jnp.uint8)
+    tb_row = (src | (x_from_ext.astype(jnp.uint8) << 2)
+              | (y_from_ext.astype(jnp.uint8) << 3)
+              | (g_from_x.astype(jnp.uint8) << 4))
 
     # running minimum over the band-edge diagonals: any path that
     # ever leaves the band must cross one of them (sound optimality
@@ -165,7 +161,7 @@ def gotoh_forward(ref: jnp.ndarray, q: jnp.ndarray, qlen: jnp.ndarray,
         tbs = []
         for u in range(UNROLL):
             h, x, em, tb_row = _row_kernel(
-                ref, qp, qlen, lo, W, n, h, x, em, ivec[u], emit_tb=True)
+                ref, qp, qlen, lo, W, n, h, x, em, ivec[u])
             tbs.append(tb_row)
         return (h, x, em), jnp.stack(tbs)
 
@@ -173,27 +169,6 @@ def gotoh_forward(ref: jnp.ndarray, q: jnp.ndarray, qlen: jnp.ndarray,
     tb = tb.reshape(n_pad, B, W)[:n]
     score, t_end = _final_score(h_fin, qlen, lo, n, W)
     return tb, score, t_end, edge_min
-
-
-@functools.partial(jax.jit, static_argnums=(3, 4))
-def gotoh_score(ref: jnp.ndarray, q: jnp.ndarray, qlen: jnp.ndarray,
-                lo: int, width: int):
-    """Score-only forward (no traceback buffer): the cheap first pass
-    of the two-pass aligner.  Returns (score (B,), edge_min (B,))."""
-    n, n_pad, qp, h0, x0, edge0, rows = _forward_setup(
-        ref, q, qlen, lo, width)
-    W = width
-
-    def chunk(carry, ivec):
-        h, x, em = carry
-        for u in range(UNROLL):
-            h, x, em, _ = _row_kernel(
-                ref, qp, qlen, lo, W, n, h, x, em, ivec[u], emit_tb=False)
-        return (h, x, em), None
-
-    (h_fin, _, edge_min), _ = jax.lax.scan(chunk, (h0, x0, edge0), rows)
-    score, _ = _final_score(h_fin, qlen, lo, n, W)
-    return score, edge_min
 
 
 @functools.partial(jax.jit, static_argnums=(4, 5))
@@ -279,11 +254,8 @@ def gotoh_traceback(tb: jnp.ndarray, ref: jnp.ndarray, q: jnp.ndarray,
     edge0 = jnp.zeros((B,), dtype=bool)
     cost0 = jnp.zeros((B,), dtype=jnp.int32)
 
-    # the walk is gather-latency-bound, so trip count matters.  Two
-    # prior non-solutions, measured: deeper unrolling of single steps
-    # (no change — this is an on-device serial dependency chain, not
-    # dispatch-bound) and a per-row Pallas walk with one-hot VMEM
-    # extraction (2x SLOWER).  The win is M-RUN BATCHING: a diagonal
+    # the walk is a serial dependency chain of gathers, so trip count
+    # matters.  M-RUN BATCHING cuts it: a diagonal
     # (match/mismatch) step keeps the band slot t FIXED and decrements
     # only the row, so a run of r consecutive M cells lies along
     # tb[i-1 .. i-r, b, t] — fetch R bytes of that line per iteration
@@ -374,14 +346,11 @@ def gotoh_traceback_events(tb: jnp.ndarray, t_end: jnp.ndarray, lo: int,
                            n: int, K: int):
     """Event-list traceback: O(#gap runs) instead of O(path length).
 
-    The dense walk (gotoh_traceback) is element-throughput-bound on
-    TPU: it scatters every output character and gathers query/ref
-    bytes for cost accounting — ~30k scattered+gathered elements per
-    row regardless of how many rows an iteration retires (measured:
-    walk time is INVARIANT in the M-run batch size R because per-
-    iteration work grows as iterations shrink).  This walk removes all
-    of that: it records only the (i, t) checkpoints where the move
-    kind (M / X / Y) CHANGES — mismatches are M-kind, so checkpoints
+    The dense walk (gotoh_traceback) scatters every output character
+    and gathers query/ref bytes for cost accounting — ~30k scattered+
+    gathered elements per row regardless of how many rows an
+    iteration retires.  This walk removes all of that: it records only
+    the (i, t) checkpoints where the move kind (M / X / Y) CHANGES — mismatches are M-kind, so checkpoints
     occur only at gap-run boundaries, a handful per genome — and the
     host rebuilds the row from the query bytes it already holds
     (decode_events), validating the path cost there.
@@ -616,8 +585,8 @@ def diff_encode(aligned: jnp.ndarray, ref: jnp.ndarray, E: int):
 @functools.partial(jax.jit, static_argnums=6)
 def pack_outputs(aligned, ref, score, edge_min, done, walk_cost, E: int):
     """Fuse every host-bound per-row output of a group into ONE int32
-    buffer (B, 5+E+E/4) so a group costs a single device->host transfer
-    (fixed transfer latency dominates on remote-attached transports).
+    buffer (B, 5+E+E/4) so a group costs a single device->host
+    transfer.
 
     Columns: [score, edge_min, done, walk_cost, diff_count,
     pos_0..pos_{E-1}, chars packed 4-per-int32] (pos/chars as in
@@ -652,20 +621,10 @@ def align_rows(ref, arr_all, lens_all, idx, lo: int, width: int, K: int):
     ev_i (K), ev_t (K)].  One jit call and ONE small device->host
     transfer per group; the host rebuilds rows from the query bytes it
     already holds (decode_events).  Rows with overflow=True need the
-    dense fallback (align_rows_dense).
-
-    On TPU the forward runs as the Pallas row-loop kernel
-    (ops/pallas_gotoh.py) — bit-identical walks; tb bytes can differ
-    only at invalid cells no path reaches."""
+    dense fallback (align_rows_dense)."""
     arr = jnp.take(arr_all, idx, axis=0)
     lens = jnp.take(lens_all, idx, axis=0)
-    if jax.default_backend() == "tpu":
-        from . import pallas_gotoh
-        tb, score, t_end, edge_min = pallas_gotoh.gotoh_forward_pallas(
-            ref, arr, lens, lo, width)
-    else:
-        tb, score, t_end, edge_min = gotoh_forward(ref, arr, lens, lo,
-                                                   width)
+    tb, score, t_end, edge_min = gotoh_forward(ref, arr, lens, lo, width)
     ev_i, ev_t, cnt, done, edge, ovf = gotoh_traceback_events(
         tb, t_end, lo, ref.shape[0], K)
     i32 = lambda a: a.astype(jnp.int32)[:, None]
@@ -685,13 +644,7 @@ def align_rows_dense(ref, arr_all, lens_all, idx, lo: int, width: int,
     device for dense-fetch rows (diff count > E)."""
     arr = jnp.take(arr_all, idx, axis=0)
     lens = jnp.take(lens_all, idx, axis=0)
-    if jax.default_backend() == "tpu":
-        from . import pallas_gotoh
-        tb, score, t_end, edge_min = pallas_gotoh.gotoh_forward_pallas(
-            ref, arr, lens, lo, width)
-    else:
-        tb, score, t_end, edge_min = gotoh_forward(ref, arr, lens, lo,
-                                                   width)
+    tb, score, t_end, edge_min = gotoh_forward(ref, arr, lens, lo, width)
     aligned, done, edge, walk_cost = gotoh_traceback(
         tb, ref, arr, t_end, lo, ref.shape[0])
     meta = pack_outputs(aligned, ref, score, edge_min, done,

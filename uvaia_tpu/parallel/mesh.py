@@ -1,12 +1,12 @@
-"""Multi-chip sharded database scan.
+"""Multi-device sharded database scan.
 
 The reference's only parallelism is single-host OpenMP (SURVEY.md §2.5).
-The TPU-native design shards two axes of the scan over a device mesh:
+This design shards two axes of the scan over a device mesh:
 
 * ``db``   — data parallelism over database rows: each device scores its
   slice of the batch, selects a local per-query top-k, and the per-query
   global state is rebuilt from an ``all_gather`` of the tiny
-  (k × queries) candidate sets over ICI.  Exactness: every global top-k
+  (k × queries) candidate sets over the device interconnect.  Exactness: every global top-k
   member is necessarily in its own shard's local top-k.
 * ``site`` — contraction/sequence parallelism over alignment columns
   (the context-parallel analogue, SURVEY.md §5): the site-summable
@@ -17,7 +17,7 @@ and reference rows on the site axis (counters are reductions over
 sites, so the activation is replicated while the reduction is sharded —
 the standard "shard the contraction" layout).
 
-Feature parity with the single-chip path: reference batches arrive
+Feature parity with the single-device path: reference batches arrive
 4-bit *packed* (halving H2D traffic; unpacked on device inside the
 shard_map body) and carry explicit per-row global indices, so the same
 step also scans compacted survivor batches from the lossless prune
@@ -38,9 +38,9 @@ from ..ops import scan
 
 def make_mesh(n_db: int, n_site: int = 1, devices=None) -> Mesh:
     # local_devices, not devices: under jax.distributed each host runs
-    # its own single-controller scan over its OWN chips (multihost.py
-    # merges per-host top-k over DCN afterwards) — the global device
-    # list would hand every host process 0's chips
+    # its own single-controller scan over its OWN devices (multihost.py
+    # merges per-host top-k afterwards) — the global device list would
+    # hand every host process 0's devices
     devices = devices if devices is not None else jax.local_devices()
     n = n_db * n_site
     if len(devices) < n:
@@ -90,7 +90,7 @@ def _scan_body(qd: scan.QueryDeviceData, n_db: int):
             jnp.broadcast_to(batch_idx[None, :], (qd.n_query, b_loc)),
             k_loc)
 
-        # tiny all_gather over ICI, then rebuild the replicated state
+        # tiny all_gather across devices, then rebuild the replicated state
         g_scores = jax.lax.all_gather(cand_scores, "db", axis=0)
         g_idx = jax.lax.all_gather(cand_idx, "db", axis=0)
         g_scores = jnp.transpose(g_scores, (1, 0, 2, 3)).reshape(

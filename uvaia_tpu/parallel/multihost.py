@@ -8,11 +8,11 @@ min_heap.c:93-117) — or, when every input is an ingested store, into
 contiguous per-host ROW ranges of the concatenated stores (one big
 index shares across hosts with no per-host re-ingest, io/store.py
 limit_records); each host streams and scans its range with the
-local engine (single chip or an ICI-sharded mesh via cfg.n_devices);
+local engine (one device or a sharded mesh via cfg.n_devices);
 at end-of-scan the tiny per-query top-k states — (Q, k, 6) scores plus
-names — are all-gathered across hosts over DCN and re-top-k'd, and
+names — are all-gathered across hosts and re-top-k'd, and
 process 0 writes the final ranked CSV.  The all_gather payload is
-O(hosts * Q * k) regardless of database size, so DCN bandwidth is
+O(hosts * Q * k) regardless of database size, so network bandwidth is
 irrelevant; per-host .aln.xz dumps remain valid append-only supersets.
 
 Coordination uses `jax.distributed.initialize` +

@@ -1,15 +1,33 @@
 """Persistent XLA compilation cache.
 
-First compiles of the 30kb-genome kernels take minutes (more through a
-remote-compile transport); caching executables on disk makes repeat CLI
-invocations start in seconds.  Called by every engine entry point.
-Override the location with UVAIA_TPU_CACHE_DIR; disable with
-UVAIA_TPU_CACHE_DIR=off.
+First compiles of the 30kb-genome kernels take tens of seconds; caching
+executables on disk lets a repeat CLI invocation skip them.  Called by
+every engine entry point.
+
+Where the cache lives:
+
+* ``JAX_COMPILATION_CACHE_DIR``, when it is set: JAX reads it itself and
+  no other directory is set here;
+* otherwise ``.jax_cache/`` at the checkout root — a fixed path, so a
+  later run finds what an earlier one wrote.  An installed package (no
+  ``pyproject.toml`` beside it) or a checkout where that directory
+  cannot be made runs uncached.
+
+Only GPU executables are cached here; CPU runs stay uncached.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
+
+
+def _checkout_cache(root: Path) -> Path | None:
+    """``root/.jax_cache`` when ``root`` is a source checkout, else None."""
+    return root / ".jax_cache" if (root / "pyproject.toml").is_file() else None
+
+
+CACHE_DIR = _checkout_cache(Path(__file__).resolve().parents[2])
 
 _done = False
 
@@ -19,18 +37,17 @@ def enable() -> None:
     if _done:
         return
     _done = True
-    path = os.environ.get("UVAIA_TPU_CACHE_DIR")
-    if path == "off":
+    import jax
+    if jax.default_backend() != "gpu":
         return
-    if not path:
-        path = os.path.join(os.path.expanduser("~"), ".cache",
-                            "uvaia_tpu_xla")
-    try:
-        import jax
-        if jax.default_backend() != "tpu":
-            return   # CPU AOT artifacts are machine-specific; TPU-only
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # caching is best-effort
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        if CACHE_DIR is None:
+            return
+        try:
+            CACHE_DIR.mkdir(exist_ok=True)
+        except OSError:
+            return          # read-only checkout: run uncached
+        jax.config.update("jax_compilation_cache_dir", str(CACHE_DIR))
+    # cache every executable, not only those that took over a second:
+    # a GPU run compiles dozens of sub-second step variants
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
